@@ -1,6 +1,6 @@
-"""m2dec_tpu — a TPU-native video decode engine (MPEG-1/2, H.264/AVC, H.265/HEVC).
+"""m2dec_tpu — a GPU video decode engine (MPEG-1/2, H.264/AVC, H.265/HEVC).
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 decoder `wujs/m2dec` (fixed-point C/C++ decoder library; see SURVEY.md).
 
 Architecture: a two-phase decoupled design.
@@ -12,7 +12,7 @@ Architecture: a two-phase decoupled design.
   coefficient tensors.
 * Phase B — reconstruction. IDCT, intra prediction, fractional-pel motion
   compensation, and in-loop filters run as batched integer kernels over all
-  macroblocks of a frame under `jax.jit` (Pallas kernels for hot paths),
+  macroblocks of a frame under `jax.jit`,
   sharded across a `jax.sharding.Mesh` for multi-chip scale-out.
 
 Bit-exactness contract: decoded frames match the reference decoder's

@@ -3,7 +3,7 @@
 Host-side Phase-A bit reader with the semantics of the reference's cached
 `dec_bits` reader (reference: src/lib/bitio.h:40-54, src/lib/bitio.c) —
 MSB-first reads, `show`/`get`/`skip`, byte alignment, Exp-Golomb — redesigned
-for the two-phase TPU decoder:
+for the two-phase device decoder:
 
 * Instead of a pluggable per-refill byte loader with `00 00 03`
   emulation-prevention stripping (reference: src/lib/m2d.cpp:90-126,

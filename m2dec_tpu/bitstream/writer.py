@@ -1,7 +1,7 @@
 """Bitstream writing.
 
 Used by the test-stream generators (tests/streamgen) and by golden-bitstream
-unit fixtures — the TPU-build analog of the reference's `txt2bin` text-pattern
+unit fixtures — this build's analog of the reference's `txt2bin` text-pattern
 fixtures (reference: src/lib/txt2bin.c:26+, test usage mpeg2.cpp:1736-1795).
 The reference has no encoder; streams here exist to exercise the decoder.
 """

@@ -1,6 +1,6 @@
 """H.264 Phase-A/Phase-B boundary: the per-picture decode plan.
 
-The TPU-native engine splits the reference's single interleaved
+The two-phase engine splits the reference's single interleaved
 parse+reconstruct MB loop (reference: src/lib/h264.cpp:10210-10251) into
 two phases.  Phase A (bit-serial entropy decode: CAVLC/CABAC, MV
 prediction, deblock-strength recording) emits the dense tensors in

@@ -22,9 +22,7 @@ is a CONTIGUOUS slab:
 
 Each scan step is then ONE dynamic slice + reshapes (lane l's window is
 rows l*16.. of the slab) + the mode/filter math + ONE (luma; three for
-deblock) dynamic update, instead of per-lane gathers. The same slab
-schedule is what the Pallas sequential-grid kernel (pallas_wavefront.py)
-iterates over with the planes VMEM-resident.
+deblock) dynamic update, instead of per-lane gathers.
 
 Slab layouts (margins chosen so every read/write of every diagonal is
 in bounds; dead band cells hold zeros and are written back unchanged):
@@ -45,11 +43,10 @@ import functools
 
 import numpy as np
 
-#: bottom margins are 8 larger than strictly needed by the scan windows:
-#: the Pallas kernels load slabs from 8-aligned row bases (8 rows above
-#: the window) and read 8 rows past it
-ML, MR, MT, MB_ = 48, 64, 16, 24       # luma margins
-MLC, MRC, MTC, MBC = 24, 16, 8, 16     # chroma margins
+#: bottom margins cover the clamped lane base: the last diagonal's
+#: lanes may run one MB row past the picture
+ML, MR, MT, MB_ = 48, 64, 16, 16       # luma margins
+MLC, MRC, MTC, MBC = 24, 16, 8, 8      # chroma margins
 
 
 @functools.lru_cache(maxsize=32)
@@ -85,14 +82,8 @@ def get_geom(mb_w, mb_h):
         "trY": mby0 * 16, "tcY": d * 16 + (ML - 32),
         "trC": mby0 * 8, "tcC": d * 8 + (MLC - 16),
     }
-    # full-lane table (Pallas kernels: every mby is a lane, row ranges
-    # static — no per-diagonal clamping)
-    lanes_f = np.broadcast_to(np.arange(mb_h)[None, :], (nd, mb_h))
-    mbx_f = np.arange(nd)[:, None] - 2 * lanes_f
-    lane2mb_full = np.where((mbx_f >= 0) & (mbx_f < mb_w),
-                            lanes_f * mb_w + mbx_f, n).astype(np.int32)
     return {"nd": nd, "lmax": lmax, "lane2mb": lane2mb, "gidx": gidx,
-            "uidx": uidx, "lane2mb_full": lane2mb_full, "mb_h": mb_h,
+            "uidx": uidx, "mb_h": mb_h,
             "bases": {k: v.astype(np.int32)
                       for k, v in bases.items()}}
 
@@ -103,9 +94,7 @@ def get_geom(mb_w, mb_h):
 
 
 def _gb(xp, *xs):
-    """Materialization barrier around TPU gather operands/results:
-    XLA:TPU's gather codegen inlines the operand producer fusion per
-    gathered element, exploding the executable (see
+    """Materialization barrier around gather operands/results (see
     reconstruct._fuse_break). Identity on numpy."""
     if xp is np:
         return xs[0] if len(xs) == 1 else xs
@@ -159,38 +148,6 @@ def unskew_chroma(sk, g, xp):
     return unskew_plane(sk, g["uidx"], 8, (MTC, MBC, MLC, MRC), xp)
 
 
-def skew_chroma_ilv(cb, cr, g, xp):
-    """Interleaved chroma skew for the Pallas kernels: block d holds
-    the cb tile at columns ML + d*16 .. +8 and the cr tile at +8..16 —
-    every per-diagonal column offset is then a multiple of 16, exactly
-    like luma (Mosaic's sublane-alignment constraint for int16)."""
-    mb_h, nd = g["gidx"].shape
-    Hc, Wc = cb.shape
-
-    def tiles_of(p):
-        t = p.reshape(mb_h, 8, Wc // 8, 8).transpose(0, 2, 1, 3)
-        return t.reshape(-1, 8, 8)
-
-    t = xp.concatenate([tiles_of(cb), tiles_of(cr)], axis=2)  # [n,8,16]
-    t = xp.concatenate([t, xp.zeros((1, 8, 16), t.dtype)], axis=0)
-    t = _gb(xp, t)
-    sk = _gb(xp, t[g["gidx"].reshape(-1)]).reshape(mb_h, nd, 8, 16)
-    sk = sk.transpose(0, 2, 1, 3).reshape(mb_h * 8, nd * 16)
-    return xp.pad(sk, ((MTC, MBC), (ML, MR)))
-
-
-def unskew_chroma_ilv(sk, g, xp):
-    mb_h, mb_w = g["uidx"].shape
-    core = sk[MTC : MTC + mb_h * 8, ML : sk.shape[1] - MR]
-    nd = core.shape[1] // 16
-    t = core.reshape(mb_h, 8, nd, 16).transpose(0, 2, 1, 3)
-    t = _gb(xp, t)
-    out = _gb(xp, t[np.arange(mb_h)[:, None], g["uidx"]])  # [mbh,mbw,8,16]
-    cb = out[..., 0:8].transpose(0, 2, 1, 3).reshape(mb_h * 8, mb_w * 8)
-    cr = out[..., 8:16].transpose(0, 2, 1, 3).reshape(mb_h * 8, mb_w * 8)
-    return cb, cr
-
-
 # ---------------------------------------------------------------------
 # diagonal-major metadata
 # ---------------------------------------------------------------------
@@ -201,12 +158,11 @@ _I8_KEYS = ("i8_modes", "i8_avail")
 _DEB_KEYS = ("deb_str", "deb_str4", "deb_ab")
 
 
-def diag_gather(P, g, has_i8, deblock, xp, full=False):
+def diag_gather(P, g, has_i8, deblock, xp):
     """Gather plan tensors into diagonal-major [nd, Lmax, ...] (invalid
     lanes -> appended zero row: kind 0 skips intra writes, zero deblock
-    strengths skip filtering). full=True uses the all-mby lane table
-    (Pallas kernels)."""
-    tab = g["lane2mb_full"] if full else g["lane2mb"]
+    strengths skip filtering)."""
+    tab = g["lane2mb"]
     idx = tab.reshape(-1)
     lmax = tab.shape[1]
     keys = _INTRA_KEYS + (_I8_KEYS if has_i8 else ()) + (
@@ -226,59 +182,35 @@ def diag_gather(P, g, has_i8, deblock, xp, full=False):
 # ---------------------------------------------------------------------
 
 
-def _slab_windows(slab, lmax, rows, xp, kernel=False):
+def _slab_windows(slab, lmax, rows, xp):
     """[Lmax*rows+1, C] slab -> [Lmax, rows+1, C] per-lane windows
     (window row 0 = the row above the lane's tile; adjacent windows
-    share that row). kernel=True builds the shifted tail with a tpu
-    rotate: the slice+concat form produces a sublane-misaligned
-    tpu.concatenate Mosaic refuses."""
-    import jax
-
+    share that row)."""
     C = slab.shape[1]
     body = slab[: lmax * rows].reshape(lmax, rows, C)
-    if kernel:
-        from jax.experimental.pallas import tpu as pltpu
-
-        n = slab.shape[0]
-        rolled = pltpu.roll(slab, n - rows, 0)  # == roll(-rows) circular
-        i0 = jax.lax.broadcasted_iota(xp.int32, slab.shape, 0)
-        tail = xp.where(i0 < n - rows, rolled,
-                        xp.zeros((), slab.dtype))
-        tail = tail[: lmax * rows]
-        last = tail.reshape(lmax, rows, C)[:, 0:1]
-        # concat-free assembly: disjoint zero-pads summed
-        sh = (lmax, rows + 1, C)
-        return place(xp, body, sh, (0, 0, 0)) + place(
-            xp, last, sh, (0, rows, 0))
-    # row `rows` of each window (= next window's row 0) without
-    # strided slicing (reshape form lowers under Pallas/Mosaic)
+    # row `rows` of each window (= next window's row 0) by a shifted
+    # reshape instead of a strided slice
     tail = xp.concatenate(
         [slab[rows:], xp.zeros((rows - 1, C), slab.dtype)], axis=0)
     last = tail.reshape(lmax, rows, C)[:, 0:1]
     return xp.concatenate([body, last], axis=1)
 
 
-def intra_windows_luma(slab, lmax, xp, kernel=False):
+def intra_windows_luma(slab, lmax, xp):
     """[Lmax*16+1, 57] -> Ty [Lmax, 17, 25] in reconstruct._intra_step's
     window layout (row 0: corner+top+topright; rows 1..16: left+tile).
 
     _slab_windows row 0 is already the row above the tile (the slab
     starts one pixel row above lane 0's MB)."""
-    win = _slab_windows(slab, lmax, 16, xp, kernel)
+    win = _slab_windows(slab, lmax, 16, xp)
     a, b = win[:, 0:1, 0:25], win[:, 1:17, 32:57]
-    if kernel:
-        sh = (lmax, 17, 25)
-        return place(xp, a, sh, (0, 0, 0)) + place(xp, b, sh, (0, 1, 0))
     return xp.concatenate([a, b], axis=1)
 
 
-def intra_windows_chroma(slab, lmax, xp, kernel=False):
+def intra_windows_chroma(slab, lmax, xp):
     """[Lmax*8+1, 25] -> Tc [Lmax, 9, 9]."""
-    win = _slab_windows(slab, lmax, 8, xp, kernel)
+    win = _slab_windows(slab, lmax, 8, xp)
     a, b = win[:, 0:1, 0:9], win[:, 1:9, 16:25]
-    if kernel:
-        sh = (lmax, 9, 9)
-        return place(xp, a, sh, (0, 0, 0)) + place(xp, b, sh, (0, 1, 0))
     return xp.concatenate([a, b], axis=1)
 
 
@@ -342,62 +274,9 @@ def _intra_step_skewed(carry, xs, lmax, has_i8, xp, P_const=None,
     return (y, cb, cr), None
 
 
-def norm_layout(xp, v):
-    """Layout-normalizing copy for Mosaic kernel paths: a slice at a
-    non-tile-aligned offset carries a vpad offset ({r,c} in the vector
-    layout) that poisons downstream tpu.concatenate / the concat-based
-    tpu lowering of pad ("result/input offset mismatch"). A DYNAMIC
-    rotate by a runtime zero (program_id * 0) cannot be folded into
-    layout metadata, so the result materializes at offset {0,0}
-    (probe-verified; a static roll or an always-true iota-where select
-    gets folded back by layout inference). Identity math."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    z = pl.program_id(0) * 0
-    v = pltpu.roll(v, z, v.ndim - 1)
-    return pltpu.roll(v, z, v.ndim - 2)
-
-
-def upd_roll(a, v, starts, xp):
-    """Kernel-mode functional update: place v [L,h,w] at (0,s1,s2) of
-    a [L,H,W] via zero-PAD straight to the target offset + iota mask.
-    upd()'s slice+concat reassembly produces misaligned tpu.concatenate
-    ops Mosaic refuses; tpu.pad lowers fine regardless of the operand's
-    vpad offset (probe-verified), so no layout normalization or rolls
-    are needed."""
-    import jax
-
-    s0, s1, s2 = starts
-    assert s0 == 0 and v.shape[0] == a.shape[0]
-    L, H, W = a.shape
-    h, w = v.shape[1], v.shape[2]
-    if v.dtype != a.dtype:
-        v = v.astype(a.dtype)
-    full = xp.pad(norm_layout(xp, v),
-                  ((0, 0), (s1, H - s1 - h), (s2, W - s2 - w)))
-    i1 = jax.lax.broadcasted_iota(xp.int32, (L, H, W), 1)
-    i2 = jax.lax.broadcasted_iota(xp.int32, (L, H, W), 2)
-    mask = ((i1 >= s1) & (i1 < s1 + h) & (i2 >= s2) & (i2 < s2 + w))
-    return xp.where(mask, full, a)
-
-
-def place(xp, v, shape, starts):
-    """Zero-embed v into a zeros(shape) block at `starts`
-    (layout-normalize + pad). Disjoint placements compose by addition —
-    the kernel window builders use sums of place() instead of
-    concatenation."""
-    pads = tuple((s, d - s - vs)
-                 for s, d, vs in zip(starts, shape, v.shape))
-    return xp.pad(norm_layout(xp, v), pads)
-
-
 def upd(a, v, starts, xp):
     """Static-slice functional update of a [L, h, w] value by slice
-    concatenation: jnp's .at[].set lowers to scatter and lax's
-    dynamic_update_slice is a value op — Mosaic supports neither inside
-    Pallas kernels, but plain slicing + concatenation lowers fine (and
-    XLA folds it back into an in-place update)."""
+    concatenation (XLA folds it back into an in-place update)."""
     s0, s1, s2 = starts
     assert s0 == 0 and v.shape[0] == a.shape[0]
     h, w = v.shape[1], v.shape[2]
@@ -420,22 +299,19 @@ def upd(a, v, starts, xp):
     return xp.concatenate(parts, axis=1) if len(parts) > 1 else band
 
 
-def intra_compute(Ty, Tcb, Tcr, P, has_i8, xp, consts=None):
+def intra_compute(Ty, Tcb, Tcr, P, has_i8, xp):
     """The per-diagonal intra mode math on assembled windows.
 
     Ty [L,17,25], Tcb/Tcr [L,9,9]; P fields [L, ...]. Returns
-    (luma tile [L,16,16], cb [L,8,8], cr [L,8,8], is_intra [L]).
-    consts: optional {'i4': (M,rnd,shift), 'i8': ...} mode-matrix
-    overrides (Pallas kernels pass them as inputs)."""
-    tile, is_intra = intra_luma_compute(Ty, P, has_i8, xp, consts)
+    (luma tile [L,16,16], cb [L,8,8], cr [L,8,8], is_intra [L])."""
+    tile, is_intra = intra_luma_compute(Ty, P, has_i8, xp)
     ocb, ocr = intra_chroma_compute(Tcb, Tcr, P, xp)
     return tile, ocb, ocr, is_intra
 
 
-def intra_luma_compute(Ty, P, has_i8, xp, consts=None):
+def intra_luma_compute(Ty, P, has_i8, xp):
     """Luma half of the intra mode math -> (tile [L,16,16],
     is_intra [L])."""
-    consts = consts or {}
     from .reconstruct import (
         _ZORDER,
         intra4_modes,
@@ -450,11 +326,6 @@ def intra_luma_compute(Ty, P, has_i8, xp, consts=None):
     def clip(v):
         return xp.clip(v, 0, 255)
 
-    #: Pallas kernels (consts passed as inputs) place mode outputs
-    #: ROW-BY-ROW from the flat [L, n] form — Mosaic rejects the
-    #: minor-dim reshape [L,16]->[L,4,4]
-    kernel = bool(consts)
-    _upd = upd_roll if kernel else upd
     T4 = Ty
     i4m = P["i4_modes"]
     i4a = P["i4_avail"]
@@ -463,17 +334,9 @@ def intra_luma_compute(Ty, P, has_i8, xp, consts=None):
         t = T4[:, oy, 1 + ox : 9 + ox]
         ll = T4[:, 1 + oy : 5 + oy, ox]
         c = T4[:, oy, ox]
-        out = intra4_modes(ll, t, c, i4a[:, blk], i4m[:, blk], xp,
-                           mats=consts.get("i4"), flat=kernel)
-        if kernel:
-            for r_ in range(4):
-                row = clip(out[:, 4 * r_ : 4 * r_ + 4]
-                           + res[:, oy + r_, ox : ox + 4])
-                T4 = _upd(T4, row[:, None, :], (0, 1 + oy + r_, 1 + ox),
-                          xp)
-        else:
-            out = clip(out + res[:, oy : oy + 4, ox : ox + 4])
-            T4 = upd(T4, out, (0, 1 + oy, 1 + ox), xp)
+        out = intra4_modes(ll, t, c, i4a[:, blk], i4m[:, blk], xp)
+        out = clip(out + res[:, oy : oy + 4, ox : ox + 4])
+        T4 = upd(T4, out, (0, 1 + oy, 1 + ox), xp)
     tile = T4[:, 1:17, 1:17]
 
     if has_i8:
@@ -486,17 +349,9 @@ def intra_luma_compute(Ty, P, has_i8, xp, consts=None):
             tr = T8[:, oy, 9 + ox : 17 + ox]
             ll = T8[:, 1 + oy : 9 + oy, ox]
             c = T8[:, oy, ox]
-            out = intra8_modes(t, ll, c, tr, i8a[:, b], i8m[:, b], xp,
-                               mats=consts.get("i8"), flat=kernel)
-            if kernel:
-                for r_ in range(8):
-                    row = clip(out[:, 8 * r_ : 8 * r_ + 8]
-                               + res[:, oy + r_, ox : ox + 8])
-                    T8 = _upd(T8, row[:, None, :],
-                              (0, 1 + oy + r_, 1 + ox), xp)
-            else:
-                out = clip(out + res[:, oy : oy + 8, ox : ox + 8])
-                T8 = upd(T8, out, (0, 1 + oy, 1 + ox), xp)
+            out = intra8_modes(t, ll, c, tr, i8a[:, b], i8m[:, b], xp)
+            out = clip(out + res[:, oy : oy + 8, ox : ox + 8])
+            T8 = upd(T8, out, (0, 1 + oy, 1 + ox), xp)
         tile = xp.where((kind == 2)[:, None, None], T8[:, 1:17, 1:17],
                         tile)
 
@@ -509,14 +364,8 @@ def intra_luma_compute(Ty, P, has_i8, xp, consts=None):
     return tile, (kind >= 1) & (kind <= 3)
 
 
-def intra_chroma_compute(Tcb, Tcr, P, xp, kernel=False):
-    """Chroma half of the intra mode math -> (cb, cr) [L,8,8].
-
-    kernel=True extracts the top/left neighbour lines with circular
-    rolls instead of offset slices: a [:, 0, 1:9]-style slice tags the
-    value with a nonzero vpad offset and the concat inside
-    intra_chroma_modes (topx = corner|top) then mixes offsets, which
-    Mosaic refuses."""
+def intra_chroma_compute(Tcb, Tcr, P, xp):
+    """Chroma half of the intra mode math -> (cb, cr) [L,8,8]."""
     from .reconstruct import intra_chroma_modes
 
     res_c = P["res_c"]
@@ -524,18 +373,8 @@ def intra_chroma_compute(Tcb, Tcr, P, xp, kernel=False):
     cmode = P["chroma_mode"]
     outs = []
     for ci, Tc in enumerate((Tcb, Tcr)):
-        if kernel:
-            from .pallas_wavefront import _rows_from
-            from jax.experimental.pallas import tpu as pltpu
-
-            L = Tc.shape[0]
-            t8 = _rows_from(xp, pltpu, Tc[:, 0:1, :], 1, 8,
-                            axis=2).reshape(L, 8)
-            l8 = _rows_from(xp, pltpu, Tc[:, :, 0:1], 1, 8,
-                            axis=1).reshape(L, 8)
-        else:
-            t8 = Tc[:, 0, 1:9]
-            l8 = Tc[:, 1:9, 0]
+        t8 = Tc[:, 0, 1:9]
+        l8 = Tc[:, 1:9, 0]
         cc = Tc[:, 0, 0]
         outs.append(xp.clip(
             intra_chroma_modes(l8, t8, cc, mb_avail, cmode, xp)
@@ -552,10 +391,9 @@ def deblock_compute(Wy, Wcb, Wcr, P, xp, tabs):
     return Wy, Wcb, Wcr
 
 
-def deblock_luma_compute(Wy, P, xp, tabs, kernel=False):
+def deblock_luma_compute(Wy, P, xp, tabs):
     from .reconstruct import _edge_params, _filter_lines_luma
 
-    _upd = upd_roll if kernel else upd
     alpha_t, beta_t, tc0_t = tabs
     dstr = P["deb_str"]
     dab = P["deb_ab"]
@@ -572,19 +410,18 @@ def deblock_luma_compute(Wy, P, xp, tabs, kernel=False):
             c0 = 4 * e
             if axis == 0:
                 cols = Wy[:, 4:20, c0 : c0 + 8]
-                Wy = _upd(Wy, _filter_lines_luma(cols, s, al, be, tc0,
-                                                 xp), (0, 4, c0), xp)
+                Wy = upd(Wy, _filter_lines_luma(cols, s, al, be, tc0,
+                                                xp), (0, 4, c0), xp)
             else:
                 rows = xp.swapaxes(Wy[:, c0 : c0 + 8, 4:20], 1, 2)
                 out = _filter_lines_luma(rows, s, al, be, tc0, xp)
-                Wy = _upd(Wy, xp.swapaxes(out, 1, 2), (0, c0, 4), xp)
+                Wy = upd(Wy, xp.swapaxes(out, 1, 2), (0, c0, 4), xp)
     return Wy
 
 
-def deblock_chroma_compute(Wcb, Wcr, P, xp, tabs, kernel=False):
+def deblock_chroma_compute(Wcb, Wcr, P, xp, tabs):
     from .reconstruct import _edge_params, _filter_lines_chroma
 
-    _upd = upd_roll if kernel else upd
     alpha_t, beta_t, tc0_t = tabs
     dstr = P["deb_str"]
     dab = P["deb_ab"]
@@ -604,14 +441,14 @@ def deblock_chroma_compute(Wcb, Wcr, P, xp, tabs, kernel=False):
                 cc0 = 2 + 4 * (e >> 1)
                 if axis == 0:
                     cols = Wc[:, 4:12, cc0 : cc0 + 4]
-                    Wc = _upd(Wc, _filter_lines_chroma(
+                    Wc = upd(Wc, _filter_lines_chroma(
                         cols, s, al, be, tc0, xp), (0, 4, cc0), xp)
                 else:
                     rows = xp.swapaxes(Wc[:, cc0 : cc0 + 4, 4:12],
                                        1, 2)
                     out = _filter_lines_chroma(rows, s, al, be, tc0,
                                                xp)
-                    Wc = _upd(Wc, xp.swapaxes(out, 1, 2),
+                    Wc = upd(Wc, xp.swapaxes(out, 1, 2),
                              (0, cc0, 4), xp)
                 if ci == 0:
                     Wcb = Wc

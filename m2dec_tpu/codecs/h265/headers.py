@@ -975,9 +975,9 @@ class H265Decoder:
         picture's reconstructed planes for differential tests.
 
         ``backend="jax"``: every completed picture is reconstructed by
-        the Phase-B TPU graph (codecs/h265/reconstruct.py) from its plan
-        and the frame pool, and the pool frame is replaced with the
-        Phase-B product — the emitted output is the TPU path's.
+        the Phase-B device graph (codecs/h265/reconstruct.py) from its
+        plan and the frame pool, and the pool frame is replaced with the
+        Phase-B product — the emitted output is the device path's.
         Multi-slice pictures keep the Python reconstruction (the
         reference runs its whole-frame SAO pass once per slice
         segment).

@@ -12,8 +12,8 @@ IDCT (reference: src/lib/idct.cpp:35-40 W constants, :144-235 horizontal,
 
 The reference's per-row DC shortcut and zero-operand shortcuts
 (`coef_exist` sparsity bitmap) are arithmetic identities of the full path,
-so this vectorized version always computes the full path: on TPU, dense
-batched arithmetic over all blocks of a frame beats data-dependent
+so this vectorized version always computes the full path: dense batched
+arithmetic over all blocks of a frame instead of data-dependent
 branching (SURVEY.md §7 design stance).
 
 Written against the array-namespace `xp` so the identical code runs under

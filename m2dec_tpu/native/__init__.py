@@ -39,6 +39,17 @@ def _cpu_tag():
 
 _BUILD = _REPO / "build" / "native" / _cpu_tag()
 
+
+def _compile(src, out, flags=("-march=native",)):
+    """g++ src -> out, written under a temporary name and renamed into
+    place, so processes that build the same library at once never load
+    a half-written file."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = ["g++", "-O3", *flags, "-shared", "-fPIC", "-std=c++17",
+           "-o", str(tmp), str(src)]
+    subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, out)
+
 _m2v_lib = None
 _m2v_tried = False
 
@@ -74,9 +85,7 @@ def _build_m2v():
             ["python3", str(_REPO / "tools" / "gen_mpeg2_tables_c.py")],
             check=True,
         )
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-std=c++17", "-o", str(out), str(src)]
-    subprocess.run(cmd, check=True, capture_output=True)
+    _compile(src, out)
     return out
 
 
@@ -150,9 +159,7 @@ def _build_h264():
             ["python3", str(_REPO / "tools" / "gen_h264_tables_c.py")],
             check=True,
         )
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", str(out), str(src)]
-    subprocess.run(cmd, check=True, capture_output=True)
+    _compile(src, out)
     return out
 
 
@@ -263,10 +270,7 @@ def _build_h265():
     if out.exists() and out.stat().st_mtime >= max(
             src.stat().st_mtime, inc.stat().st_mtime):
         return out
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-std=c++17",
-           "-o", str(out), str(src)]
-    subprocess.run(cmd, check=True, capture_output=True)
+    _compile(src, out)
     return out
 
 
@@ -309,9 +313,7 @@ def _build_oplevel():
     out = _BUILD / "liboplevel.so"
     if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
         return out
-    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                    "-o", str(out), str(src)],
-                   check=True, capture_output=True)
+    _compile(src, out, flags=())
     return out
 
 

@@ -1,6 +1,6 @@
 /* Native H.264 Phase-A: slice entropy decode -> dense picture plan.
  *
- * Host-side bit-serial front end of the two-phase TPU engine: walks a
+ * Host-side bit-serial front end of the two-phase engine: walks a
  * picture's slices once (CAVLC/CABAC, MV prediction, deblock-strength
  * recording) and fills the PicturePlan tensors that the batched XLA
  * Phase B consumes (m2dec_tpu/codecs/h264/reconstruct.py).  Semantics

@@ -1,6 +1,6 @@
 /* Native H.265 Phase-A: slice entropy decode -> dense picture plan.
  *
- * Host-side bit-serial front end of the two-phase TPU engine: walks a
+ * Host-side bit-serial front end of the two-phase engine: walks a
  * picture's slices once (CABAC, quad-tree, intra-mode derivation,
  * residual parse+dequant, merge/AMVP motion derivation, deblock edge
  * recording, SAO parameter parse) and fills the H265Plan tensors that

@@ -1,6 +1,6 @@
 /* Native MPEG-1/2 Phase-A: slice entropy decode -> dense picture plan.
  *
- * TPU-first design: this is NOT a decoder — it is the host-side bit-serial
+ * Device-first design: this is NOT a decoder — it is the host-side bit-serial
  * front end of the two-phase engine. It walks a picture's slices once and
  * emits plan tensors (flags / motion vectors / dequantized coefficients)
  * that Phase B consumes as batched XLA ops. Semantics mirror the verified

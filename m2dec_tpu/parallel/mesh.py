@@ -7,11 +7,11 @@ three levels —
    (different streams, or B pictures sharing the same two references, or
    GOPs split at IDR/closed-GOP boundaries) reconstruct on different chips.
    Reference frames needed by a remote picture travel by collective
-   (all-gather of DPB pages over ICI).
+   (all-gather of DPB pages over the interconnect, NVLink on GPUs).
 2. **Spatial tile parallelism** (future "tile" axis): slices/tile rows of
    one picture across chips with halo exchange for MC windows.
 3. **Wavefront entropy parallelism**: Phase A engines per slice/row (host
-   now, native/Pallas later).
+   now, native C++ today).
 
 This module implements level 1: a pjit'd batched reconstruction step where
 the picture batch is sharded across the mesh and reference planes are
@@ -231,7 +231,7 @@ def h265_example_gops(n_gops, n_pics, H, W, ctb_log2=4, pool_size=4,
 def h264_tile_step(mesh, mb_w, mb_h, has_i8=False, axis="frame"):
     """Level-2 spatial tile parallelism (SURVEY §2.4/§5.8): ONE
     picture's Phase B banded across devices by MB rows, with halo
-    exchange over ICI.
+    exchange over the interconnect.
 
     - residual + quarter-pel MC: embarrassingly parallel per band — the
       reference frames are replicated, MVs gather in global coordinates

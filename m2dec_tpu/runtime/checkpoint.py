@@ -3,7 +3,7 @@
 The reference has no checkpointing; its closest analogs are frame
 skipping with header replay (m2decoder.h:96-131) and the DPB bypass
 output mode.  For multi-host GOP sharding and preemptible serving, the
-TPU build adds real decode-state checkpoints: at any picture boundary
+this build adds real decode-state checkpoints: at any picture boundary
 the full decoder state — active SPS/PPS, POC counters, DPB, frame pool
 pixels, reference lists and colocated-MV pages, LRU/output state — is
 serialized to one opaque blob.  A fresh process restores the blob and

@@ -3,7 +3,7 @@
 The reference ships two display sinks: an SDL YUV window
 (display.cpp:1-785, threadplayer.cpp UniSurface) and an aalib
 ASCII-art fallback (aadisp.cpp:7-54). This environment is headless, so
-the TPU build's display tier targets the terminal:
+this build's display tier targets the terminal:
 
 * :class:`AnsiDisplay` — truecolor half-block rendering (two pixels per
   character cell via '▀' with independent fg/bg), the SDL-window analog.

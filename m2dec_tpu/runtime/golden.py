@@ -1,10 +1,10 @@
-"""Device-side golden-output checksums (VERDICT r2 #8).
+"""Device-side golden-output checksums.
 
 The reference's golden mode writes one MD5 per cropped output frame
 (FileWriterMd5, /root/reference/src/app/filewrite.h:91-125). MD5 is
-bit-serial over the byte stream — unusable on TPU and pointless to pull
-37 MB/frame through a ~MB/s d2h path just to hash on the host. The TPU
-serving contract keeps frames device-resident (HBM); golden mode
+bit-serial over the byte stream — a poor fit for the device, and
+pulling every frame back just to hash it on the host defeats the
+serving contract, which keeps frames device-resident; golden mode
 computes a STRONG PER-FRAME CHECKSUM on device and pulls 8 bytes per
 frame:
 
@@ -21,7 +21,7 @@ format is one line per output frame:
 
 ``host_cks_file`` produces the identical file from a raw ``.out`` dump
 (e.g. the reference binary's ``-o`` output), so goldens can be checked
-end-to-end without materializing the TPU frames.
+end-to-end without materializing the device frames.
 """
 
 from __future__ import annotations

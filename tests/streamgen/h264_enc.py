@@ -1866,6 +1866,13 @@ class H264HighGen(H264InterGen):
             self._emit_i4x4(w)
 
 
+class H264HighBGen(H264HighGen, H264BGen):
+    """High-profile streams with B pictures: H264HighGen's I/P slices
+    (intra 8x8 in I) and H264BGen's pattern grammar and B slices. B
+    inter residuals stay 4x4 (the CAVLC rule in _emit_inter_residual)
+    and intra MBs in B emit transform_size_8x8_flag=0."""
+
+
 class H264WeightedGen(H264BGen):
     """Weighted prediction: explicit (type 1) for P and B, or implicit
     (type 2) for B. Weights stay in [0, 2<<shift] and offsets small so

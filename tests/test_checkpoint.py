@@ -190,7 +190,7 @@ def test_h265_resume():
 
 
 # ---------------------------------------------------------------------
-# format hardening (VERDICT r2 #9): version + schema digest in the
+# format hardening: version + schema digest in the
 # header; stale blobs refuse to load instead of resuming silently
 # ---------------------------------------------------------------------
 

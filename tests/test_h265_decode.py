@@ -351,7 +351,7 @@ def _run_backend_case(reference_bins, tmp_path, gen, pat, backend,
 
 
 def test_h265_multi_slice_phase_b_jax(reference_bins, tmp_path):
-    """Multi-slice pictures through the TPU Phase B: per-slice
+    """Multi-slice pictures through the device Phase B: per-slice
     decode -> window-masked deblock -> whole-frame SAO snapshot
     sequence (slice_layer, h265.cpp:4849-4866), active deblock."""
     from streamgen.h265_enc import ALL_MODES
@@ -445,7 +445,7 @@ def test_h265_dependent_slices(reference_bins, tmp_path, nsl):
 
 
 def test_h265_dependent_slices_inter_jax(reference_bins, tmp_path):
-    """Dependent segments + deblock override through the TPU Phase B."""
+    """Dependent segments + deblock override through the device Phase B."""
     from streamgen.h265_enc import ALL_MODES
 
     _run_backend_case(

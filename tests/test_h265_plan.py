@@ -89,7 +89,7 @@ def test_kernel_units():
         assert np.array_equal(got, want)
 
 
-# -- multi-slice pictures through Phase B (VERDICT r2 #5): row-aligned
+# -- multi-slice pictures through Phase B: row-aligned
 #    slice segments replay the reference's per-segment decode ->
 #    window-masked deblock -> whole-frame SAO sequence in the jit graph
 #    (slice_layer, /root/reference/src/lib/h265.cpp:4682-4729) ---------

@@ -5,7 +5,7 @@ schedule and the Python oracle.
 The tile path is the auto default for CTB 16 (every default-ctb case in
 test_h265_plan.py already rides it); these tests pin the two backends
 against each other explicitly and force the CTB-32 tile variant (S=32
-slots + strong smoothing) that auto mode reserves for TPU use.
+slots + strong smoothing) that auto mode leaves on the level path.
 Reference CTU walk being modelled: /root/reference/src/lib/h265.cpp:4752-4799.
 """
 

@@ -170,7 +170,7 @@ def test_gop_scaling_overhead():
     """Adding GOP shards to the virtual mesh must cost far less than a
     full per-shard replay (the sharded graph's overhead structure; the
     virtual devices share this host's 2 cores, so wall-clock here
-    cannot show real ICI scaling — see tools/scaling_report.py)."""
+    cannot show real interconnect scaling — see tools/scaling_report.py)."""
     import tools.scaling_report as SR
 
     t1 = SR.measure(1, reps=2)

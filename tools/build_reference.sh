@@ -20,7 +20,7 @@ g++ -O2 -w -DNDEBUG -DUNIT_TEST -I. -I"$LIB" -o h264dec h264dec.cpp md5.c \
 g++ -O2 -w -DNDEBUG -DUNIT_TEST -I. -I"$LIB" -o m2dec m2dec.cpp display.cpp md5.c $CORE
 # HD-capacity variant for the 1080p MPEG-2 bench denominator: the stock
 # m2dec app statically sizes its frame heap for 720x576 (m2dec.cpp
-# WIDTH/HEIGHT) and SEGFAULTS on 1080p input (VERDICT r4 weak #7) —
+# WIDTH/HEIGHT) and SEGFAULTS on 1080p input —
 # patch only the capacity constants (decode logic identical).
 sed 's/const int WIDTH = 720;/const int WIDTH = 1920;/; s/const int HEIGHT = 576;/const int HEIGHT = 1088;/; s/1920 \* 1080/1920 * 1088/' \
     m2dec.cpp > m2dec_hd.cpp

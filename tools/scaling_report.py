@@ -5,8 +5,8 @@ added. Efficiency = T(1) / T(G).
 
 NOTE: virtual devices share this host's physical cores, so these
 numbers measure the sharded graph's overhead structure (collectives,
-per-shard dispatch), not ICI hardware scaling. On real multi-chip
-slices each shard owns a chip and the same graph partitions 1:1.
+per-shard dispatch), not interconnect scaling. On real multi-card
+hosts each shard owns a card and the same graph partitions 1:1.
 """
 
 import os
